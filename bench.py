@@ -19,8 +19,7 @@ Two throughput views per config:
   * end-to-end reads/s: the full CLI run (what a user sees), best of reps.
   * device-only reads/s: the jitted pipeline kernel looped on device-resident
     inputs via ``lax.scan`` (optimization barriers pin the body inside the
-    loop), isolating the chip from the attachment link.  This is the number
-    that transfers to a direct PCIe/ICI attachment.
+    loop), isolating the device from host transfers.
 
 Baselines: the reference binary measured in this container (BASELINE.md),
 plus the polyG config's oracle re-measured on the representative generated
@@ -78,9 +77,8 @@ def replicate(src: str, dst: str, n: int) -> None:
 
 def ensure_oracle() -> str:
     """Path to the compiled reference binary, building it from
-    /root/reference/src if absent (VERDICT round-3 item 4: the fair baseline
-    must be measured in the SAME session as our numbers, not carried over
-    from a differently-sized container).  Returns '' when neither the binary
+    the reference sources if absent (the fair baseline is measured in the
+    same session as our numbers).  Returns '' when neither the binary
     nor the reference sources are available."""
     import subprocess
 
@@ -229,7 +227,7 @@ def device_only_rate(name: str, paired: bool, argv: list, workdir: str) -> float
     """Chip-isolated reads/s: the pipeline kernel looped N times over
     device-resident inputs.  Two-point measurement (N vs 2N iterations, same
     compiled function, dynamic fori_loop bound) so the fixed per-call fetch /
-    dispatch latency of the attachment cancels exactly and only the marginal
+    dispatch latency cancels exactly and only the marginal
     per-iteration pipeline cost remains."""
     import numpy as np
 
@@ -271,7 +269,7 @@ def device_only_rate(name: str, paired: bool, argv: list, workdir: str) -> float
 
 def transfer_split(name: str, paired: bool, argv: list,
                    workdir: str) -> dict:
-    """Per-config wire anatomy on this attachment (VERDICT r3 item 3): one
+    """Per-config transfer anatomy: one
     production chunk's host->device upload, device compute, and
     device->host result fetch, each measured in isolation.
 
@@ -379,7 +377,7 @@ def transfer_split(name: str, paired: bool, argv: list,
 
 
 def b5_fallback_probe(workdir: str) -> dict:
-    """Transport fallback anatomy (VERDICT r4 item 7): legacy 40-level
+    """Transport fallback anatomy: legacy 40-level
     quality data exceeds the 32-entry b5 dictionary (ops/packed.py
     encode5_host returns None), so the wire falls back to the 1-byte joint
     encoding.  Measure that path's actual upload next to the binned b5
@@ -441,7 +439,7 @@ def b5_fallback_probe(workdir: str) -> dict:
 
 
 def cold_start(workdir: str) -> dict:
-    """Cold CLI walls (VERDICT r4 item 6): the steady-state e2e numbers
+    """Cold CLI walls: the steady-state e2e numbers
     exclude the ~3-4 s python+jax+XLA-cache process startup that a cold
     ``python -m fqtool_tpu.main`` invocation pays and the C++ oracle does
     not (~ms).  Measure it honestly: two cold subprocess runs per headline
@@ -449,8 +447,8 @@ def cold_start(workdir: str) -> dict:
     is the steady cold-start regime), and report the break-even read count
     where the steady-state rate advantage amortizes the startup.
 
-    MUST run before the parent process touches the TPU (the attachment is
-    single-client); bench.main() calls this first."""
+    Runs before the parent process touches the device, so that one process
+    holds the card at a time; bench.main() calls this first."""
     import subprocess
 
     out = {}
@@ -458,8 +456,7 @@ def cold_start(workdir: str) -> dict:
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["FQTOOL_TPU_TRACE"] = "0"
     # the raw 12.5k-read testdata: cold wall is startup-dominated by
-    # construction, and a transient attachment stall (the link swings
-    # 1-65 MB/s) costs minutes, not the whole bench
+    # construction
     for name, argv, io in (
         ("se_qualtrim", ["-q", "-f", "3", "-t", "2"],
          ["-i", f"{TESTDATA}/r1.fq.gz", "-o", "cold.fq.gz"]),
@@ -482,7 +479,7 @@ def cold_start(workdir: str) -> dict:
                     walls[-1] = None
                     break
         except subprocess.TimeoutExpired:
-            sys.stderr.write(f"[bench] cold {name}: attachment stall "
+            sys.stderr.write(f"[bench] cold {name}: timed out "
                              "(>300s); skipping\n")
             walls.append(None)
         out[name] = {"cold_first_wall_s": walls[0],
@@ -490,12 +487,12 @@ def cold_start(workdir: str) -> dict:
     return out
 
 
-def golden_on_tpu(oracle_bin: str, workdir: str, paired: bool, name: str,
-                  argv: list) -> bool:
-    """Record-diff a run executed on THIS session's real backend (TPU under
-    the driver) against the oracle at ``-w 1`` on the same replicated bench
-    inputs (VERDICT r4 item 2: the test suite forces jax_platforms=cpu, so
-    without this no oracle diff ever exercises the TPU lowering).  Returns
+def golden_on_device(oracle_bin: str, workdir: str, paired: bool, name: str,
+                     argv: list) -> bool:
+    """Record-diff a run executed on the accelerator backend against the
+    oracle at ``-w 1`` on the same replicated bench inputs (the test suite
+    runs on the CPU backend, so this is the diff that exercises the device
+    lowering).  Returns
     True when every output FASTQ stream is record-identical and the JSON
     reports match modulo the documented exceptions (tests/oracle.py)."""
     import subprocess
@@ -647,7 +644,6 @@ def multihost_scaling(workdir: str, config: str = "se_qualtrim") -> dict:
         env = os.environ.copy()
         env.update({
             "JAX_PLATFORMS": "cpu",
-            "FQTOOL_TPU_PLATFORM": "cpu",
             "XLA_FLAGS": "--xla_force_host_platform_device_count=1",
             "FQTOOL_TPU_NO_JAX_DIST": "1",
             "FQTOOL_TPU_TRACE": "0",
@@ -763,7 +759,7 @@ def main() -> None:
     n_polyg = gen_polyg_input(f"{workdir}/polyg.fq", reps=32)
 
     # cold-start walls FIRST: the subprocesses need the device before this
-    # process claims the (single-client) attachment
+    # process claims it (one process per card)
     cold = {}
     if not QUICK and os.environ.get("FQTOOL_TPU_BENCH_COLD", "1") == "1":
         try:
@@ -809,8 +805,7 @@ def main() -> None:
                 big = ["-i", "se.fq.gz", "-o", "o.fq.gz"]
             argv_w = [(a.replace("merged", "wmerged") if "merged" in a else a)
                       for a in argv]
-            # one config failing (e.g. a transient attachment stall) must
-            # not take down the whole bench: every other config's numbers
+            # one config failing must not take down the whole bench: every other config's numbers
             # and the final JSON line still have to reach the driver
             try:
                 fq_main(small + argv_w)  # warm-up: compile cache
@@ -864,8 +859,8 @@ def main() -> None:
                 sys.stderr.write(f"[bench] {name}: transfer split failed: {e}\n")
             if oracle_bin:
                 try:
-                    golden[name] = golden_on_tpu(oracle_bin, workdir, paired,
-                                                 name, argv)
+                    golden[name] = golden_on_device(oracle_bin, workdir,
+                                                    paired, name, argv)
                     sys.stderr.write(f"[bench] {name}: golden on "
                                      f"{_backend()}: {golden[name]}\n")
                 except Exception as e:
@@ -922,7 +917,7 @@ def main() -> None:
         "transfer_split": splits,
         "link_mbps": link_mbps,
         "multihost_scaling": scaling,
-        "golden_on_tpu": golden,
+        "golden_on_device": golden,
         "golden_backend": _backend(),
         "cold_start": cold,
     }
@@ -957,7 +952,7 @@ def main() -> None:
         "transfer_split": splits,
         "link_mbps": link_mbps,
         "multihost_scaling": scaling,
-        "golden_on_tpu": golden,
+        "golden_on_device": golden,
         "golden_backend": _backend(),
         "cold_start": cold,
     }))

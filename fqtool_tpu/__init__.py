@@ -1,4 +1,4 @@
-"""fqtool_tpu: a TPU-native FASTQ preprocessing engine.
+"""fqtool_tpu: a FASTQ preprocessing engine on JAX accelerators.
 
 A from-scratch JAX/XLA rebuild with full feature parity to fqtool (a fastp
 fork): per-read trimming/filtering pipelines run as vectorized device kernels

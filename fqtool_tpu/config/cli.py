@@ -35,7 +35,7 @@ def _range_check(name: str, lo, hi, cast):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fqtool-tpu",
-        description="TPU-native FASTQ preprocessor (feature-parity rebuild of fqtool)",
+        description="FASTQ preprocessor on JAX (feature-parity rebuild of fqtool)",
         add_help=True,
     )
     # IO (main.cpp:18-30)

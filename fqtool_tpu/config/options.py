@@ -1,4 +1,4 @@
-"""Configuration model for the TPU-native fqtool.
+"""Configuration model for fqtool on JAX.
 
 Mirrors the reference option structs (reference: src/options.h:15-308) and the
 derivation passes ``update()`` / ``validate()`` (src/options.cpp:24-71) with the

@@ -5,10 +5,12 @@ read packs, reference: src/seprocessor.cpp:59-180); the multi-host equivalent
 shards the *pack stream* across host processes:
 
 * ``jax.distributed.initialize()`` forms the process group (SURVEY.md §5) so
-  each host sees its local TPU devices plus the global topology; per-pack
-  device compute stays on the local mesh (ICI), and the only cross-host
-  traffic is the end-of-stream statistics reduction (DCN-scale payloads:
-  histograms and sparse duplication entries, a few MB at most).
+  each host sees its local devices plus the global topology; per-pack
+  device compute stays on the local mesh, and the only cross-host traffic
+  is the end-of-stream statistics reduction (histograms and sparse
+  duplication entries, a few MB at most).  One process per host: every
+  rank claims all of its host's local devices, so on one machine with
+  several cards the in-process mesh (dist/sharding.py) is the path.
 * The input stream is split into WRITE-UNIT-sized ownership quanta
   (pipeline/runner.py WRITE_UNIT, 16384 records): the parallel-ingest
   planner (dist/ingest.py) assigns each rank a contiguous unit range and the
@@ -40,7 +42,7 @@ Activation: set ``FQTOOL_TPU_COORDINATOR=host:port``, ``FQTOOL_TPU_NPROCS``
 and ``FQTOOL_TPU_PROC_ID``.  The stat-reduction socket uses port+1 (override
 with ``FQTOOL_TPU_REDUCE_PORT``).  ``FQTOOL_TPU_NO_JAX_DIST=1`` skips
 ``jax.distributed.initialize`` (the TCP layer carries all correctness-
-relevant traffic; jax init is what wires up multi-host TPU meshes).
+relevant traffic; jax init is what wires up multi-host device meshes).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Multi-chip data-parallel execution.
 
 The reference's only parallelism axis is the read axis (1 reader thread + N
-worker pthreads over read packs, SURVEY.md section 2.3); the TPU-native
-first-class equivalent is data parallelism over a 1-D device mesh: packs are
+worker pthreads over read packs, SURVEY.md section 2.3); the device
+equivalent is data parallelism over a 1-D device mesh: packs are
 sharded along the batch dimension, per-read kernels run fully parallel, and
 the statistics reductions (per-cycle histograms, k-mer counts, filter fates)
-become XLA all-reduces over ICI inserted automatically by ``jit`` under the
+become XLA all-reduces between the devices, inserted automatically by ``jit`` under the
 sharding constraints.
 
 Per-read outputs (spans, result codes) stay sharded along the read axis so

@@ -1,6 +1,6 @@
 """FASTQ pack I/O.
 
-The TPU pipeline consumes *packs*: struct-of-array batches with fixed-shape
+The device pipeline consumes *packs*: struct-of-array batches with fixed-shape
 ``uint8[B, L]`` base/quality matrices plus per-read lengths.  Names and strand
 lines stay in the raw text buffer as (offset, length) spans -- the native core
 (``native/fastq_core.cpp``) tokenizes input text and re-materializes output

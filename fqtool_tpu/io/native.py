@@ -8,6 +8,7 @@ on systems without a compiler.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -32,20 +33,38 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
+_load_error: Optional[str] = None
+
+
 def _build() -> bool:
+    """Compile into a private file and rename it into place, so processes
+    building at once never load a half-written library."""
+    global _load_error
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     try:
         cmd = ["g++", "-std=c++17", "-O3", "-shared", "-fPIC",
-               "-o", _LIB, _SRC, "-lz"]
+               "-o", tmp, _SRC, "-lz"]
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
-    except Exception as e:  # pragma: no cover - toolchain issues
-        sys.stderr.write(f"fastq_core native build failed ({e}); "
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", None)
+        _load_error = f"{e}" + (f": {detail.decode(errors='replace')[-500:]}"
+                                if detail else "")
+        sys.stderr.write(f"fastq_core native build failed ({_load_error}); "
                          "falling back to pure Python\n")
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
         return False
 
 
+def load_error() -> Optional[str]:
+    """Why :func:`get_lib` returned None, or None."""
+    return _load_error
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, _load_error
     if _lib is not None or _tried:
         return _lib
     with _lock:
@@ -53,6 +72,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         if os.environ.get("FQTOOL_TPU_NO_NATIVE"):
+            _load_error = "disabled by FQTOOL_TPU_NO_NATIVE"
             return None
         if not os.path.exists(_LIB) or \
                 os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
@@ -60,7 +80,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 return None
         try:
             lib = ctypes.CDLL(_LIB)
-        except OSError:
+        except OSError as e:
+            _load_error = str(e)
             return None
         lib.fq_parse.restype = ctypes.c_int64
         lib.fq_parse.argtypes = [

@@ -1,6 +1,6 @@
 // fastq_core: native host-side FASTQ runtime.
 //
-// The TPU device pipeline consumes struct-of-array packs; this module is the
+// The device pipeline consumes struct-of-array packs; this module is the
 // native replacement for the per-record host work around it -- tokenizing
 // FASTQ text into record spans, packing bases/qualities into fixed-shape
 // matrices, and re-materializing output records from (select, start, len)

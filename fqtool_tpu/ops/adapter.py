@@ -50,8 +50,7 @@ def trim_by_sequence(seq: jnp.ndarray, rlen: jnp.ndarray,
     pos_axis = positions(P) + start  # [1, P] actual pos values
 
     # mism[b, p] = sum over i in [max(0,-pos), cmplen) of adapter[i] != seq[b, i+pos]
-    # computed as ``alen`` static shifted slices (no gather: per-row gathers
-    # are orders of magnitude slower on the TPU VPU than sliced compares)
+    # computed as ``alen`` static shifted slices (no per-row gather)
     seq_pad = jnp.pad(seq, ((0, 0), (-start, alen)))  # read index i+pos -> col i+pos-start
     # uint8 accumulator (mism <= alen < 256): a quarter of the HBM traffic
     # of int32 across the ``alen`` accumulation passes

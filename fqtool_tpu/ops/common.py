@@ -3,7 +3,7 @@
 All kernels operate on left-aligned batches: ``seq``/``qual`` are
 ``uint8[B, L]`` ASCII matrices, ``rlen`` is ``int32[B]``.  Data-dependent
 early-exit loops from the reference become evaluate-everywhere + first/last
-true-index selections, which map cleanly onto the TPU VPU.
+true-index selections, which compile to fused elementwise code.
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ Q30_CHAR = ord("?")  # reference: stats.cpp:251
 def seq2int_codes(seq: jnp.ndarray) -> jnp.ndarray:
     """Map ASCII bases to 2-bit codes; -1 marks invalid bases.
 
-    Compare/select chain, not a 256-entry LUT: per-element table gathers are
-    the single slowest vector op on TPU (~25 ms per [8k, 152] plane on v5e),
-    where a 4-way select is pure VPU."""
+    Compare/select chain, not a 256-entry LUT: a 4-way select fuses with
+    its neighbours, where a per-element table gather does not."""
     return jnp.select(
         [seq == A, seq == T, seq == C, seq == G],
         [jnp.int8(0), jnp.int8(1), jnp.int8(2), jnp.int8(3)],
@@ -71,11 +70,9 @@ def take_dyn(planes, idx: jnp.ndarray):
     """Per-row dynamic gather ``out[b, i] = x[b, idx[b, i]]`` as a one-hot
     batched matmul.
 
-    ``jnp.take_along_axis`` lowers to a scalar-path gather on TPU
-    (~10-20 ns/element: ~14 ms for one [8k, 152] plane on v5e -- measured,
-    the dominant cost of the overlap/merge kernels), while building the
-    one-hot [B, Lo, Lx] compare on the VPU and contracting it on the MXU is
-    <1 ms for the same shape.  uint8 payloads are exact in bfloat16
+    An alternative to ``jnp.take_along_axis`` that contracts a one-hot
+    [B, Lo, Lx] compare in a matrix product.  uint8 payloads are exact in
+    bfloat16
     (integers up to 256).  Out-of-range indices yield 0 -- callers either
     clip (identical to take_along_axis) or mask those positions downstream.
 
@@ -108,11 +105,10 @@ def take_dyn(planes, idx: jnp.ndarray):
 
 def shift_rows(planes, shift: jnp.ndarray):
     """Per-row cyclic shift ``out[b, i] = x[b, (i + shift[b]) mod L]`` as a
-    barrel rotate: log2(L) conditional static rolls, each a cheap VPU
-    select over lane-rotated copies.  ~30x faster than the one-hot-matmul
-    gather on v5e for [16k, 152] planes (3.9 vs 111 ms measured on the
-    merge kernel) because nothing is materialized beyond the planes
-    themselves.  Positions that wrap read cyclic garbage -- callers mask by
+    barrel rotate: log2(L) conditional static rolls, each a select over
+    rotated copies, so nothing is materialized beyond the planes themselves
+    (the one-hot-matmul gather of :func:`take_dyn` builds a [B, L, L]
+    intermediate).  Positions that wrap read cyclic garbage -- callers mask by
     the row's valid length, exactly as with the padding garbage before.
 
     ``planes``: one [B, L] array, or a sequence sharing ``shift``.
@@ -135,10 +131,10 @@ def shift_rows(planes, shift: jnp.ndarray):
 
 def _shift_rows_packed(xs, s, L):
     """uint8 byte-rotate via packed uint32 lanes -- exactly cyclic mod L when
-    L % 4 == 0.  The barrel rotate over u8 lanes pays a cross-lane permute
-    per log2(L) step; packing 4 bytes per u32 lane cuts the lane count 4x
-    and moves the sub-lane rotate into register shifts (measured on v5e,
-    [16k, 152]: 0.22 -> ~0.01 ms per plane).  Lane rotate by s//4, then the
+    L % 4 == 0.  The barrel rotate over u8 elements pays a permute per
+    log2(L) step; packing 4 bytes per u32 word cuts the element count 4x
+    and moves the sub-word rotate into register shifts.  Word rotate by
+    s//4, then the
     s%4 byte phase is one select over (w >> 8r) | (next_lane << (32-8r))
     (little-endian byte order, verified by the cyclic-wrap unit test)."""
     NL = L // 4
@@ -171,8 +167,8 @@ def align(planes, start: jnp.ndarray):
 
 
 def align_static(seq: jnp.ndarray, k: int) -> jnp.ndarray:
-    """Left-shift every row by the STATIC offset ``k`` (slice + pad -- free,
-    where the per-row gather of :func:`align` costs ~1.5 us/row on v5e).
+    """Left-shift every row by the STATIC offset ``k`` (slice + pad, no
+    per-row rotate as in :func:`align`).
     Used when the front offset is a compile-time constant (force-front trim
     with quality front-cut disabled)."""
     if k == 0:
@@ -181,8 +177,8 @@ def align_static(seq: jnp.ndarray, k: int) -> jnp.ndarray:
 
 
 def select_at(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """x[b, idx[b]] as a masked reduction -- one compare + sum on the VPU
-    instead of a per-row gather."""
+    """x[b, idx[b]] as a masked reduction -- one compare + sum instead of
+    a per-row gather."""
     sel = positions(x.shape[1]) == idx[:, None]
     return jnp.sum(jnp.where(sel, x, jnp.zeros((), x.dtype)), axis=1)
 

@@ -47,12 +47,11 @@ def _sparse_patches(fix: jnp.ndarray, new_seq: jnp.ndarray,
     (seq, qual) byte and the pre-correction base at each.
 
     Iterative max-extraction instead of ``lax.top_k``: 5 masked max
-    reductions compile to straight VPU code, where top_k lowers to a sort
-    (~30x slower at this shape on v5e).  The slot VALUES come out of the
+    reductions compile to straight elementwise code, where top_k lowers to
+    a sort.  The slot VALUES come out of the
     same loop as masked lane reductions -- positions are unique per row, so
     exactly one lane matches ``hit`` -- instead of [B, L] -> [B, 5]
-    take_along_axis gathers, which lower to per-row dynamic gathers
-    (measured: the gathers were ~2/3 of this kernel's cost on v5e).
+    take_along_axis gathers, which lower to per-row dynamic gathers.
     Values in dead slots (pos == -1) are unspecified; every consumer
     masks by pos >= 0."""
     pos = positions(fix.shape[1])
@@ -126,8 +125,8 @@ def correct_by_overlap(seq1, qual1, rlen1, seq2, qual2, rlen2, ov,
 
     # correction matrix (from & 7) * 8 + (to & 7), filterresult.cpp:122-126 --
     # computed from the sparse patches (<= MAX_FIXES entries per row) as 64
-    # masked sums over [B, MAX_FIXES]: a [B*L] scatter-add into 64 bins costs
-    # ~100ms/chunk on v5e, this is noise
+    # masked sums over [B, MAX_FIXES] instead of a [B*L] scatter-add into
+    # 64 bins
     def _matrix_from(frm, pos, new_seq):
         key = (frm & 7).astype(jnp.int32) * 8 + (new_seq & 7).astype(jnp.int32)
         live = (pos >= 0).astype(jnp.int32)

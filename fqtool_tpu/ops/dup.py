@@ -88,8 +88,8 @@ def _rolling_pack8_u16(codes: jnp.ndarray):
 def _pack_kmer32(codes: jnp.ndarray, start: jnp.ndarray):
     """(hi, hi_ok, lo, lo_ok) -- the 32-base discriminator at per-read
     ``start`` as two uint32 halves, from FOUR 8-base u16 rolling windows
-    (half the cumulative plane traffic of two 16-base u32 extractions;
-    0.65 -> 0.42 ms per 64k x 152 dup_keys_se, bit-identical)."""
+    (half the cumulative plane traffic of two 16-base u32 extractions,
+    bit-identical)."""
     w8, ok8 = _rolling_pack8_u16(codes)
     w8u = w8.astype(jnp.uint32)
     oku = ok8.astype(jnp.uint32)
@@ -103,8 +103,7 @@ def _pack_kmer32(codes: jnp.ndarray, start: jnp.ndarray):
 def _pack_2bit(codes: jnp.ndarray, start: jnp.ndarray, n: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Pack ``n`` (16) 2-bit codes beginning at per-read ``start``: rolling
     windows over all positions (static slices), then a masked-reduction
-    select at ``start`` -- per-row gathers cost ~1.5us/row on v5e, this is
-    pure VPU."""
+    select at ``start`` instead of a per-row gather."""
     assert n == 16
     w16, ok16 = _rolling_pack16(codes)
     val = select_at(w16, start)

@@ -61,12 +61,9 @@ def _phase_scan50(head: jnp.ndarray, moving: jnp.ndarray, O: int,
     moving[b, o+i] vs head[b, i] for i < min(ol, W) at every offset o.
 
     Lowering: W unrolled adds into one [B, O] uint8 accumulator (d50 <= 50
-    always fits), keeping the offset axis on the 128-lane minor dimension
-    and nothing materialized beyond [B, O] planes.  Measured on v5e
-    (16k x 152 chunk, whole analyze): 0.78 ms vs 2.20 ms for the
-    [B, W, O] slice-stack this replaces (the stack writes+reads a
-    [B, 50, O] intermediate, ~100 MB at this shape) and 76 ms for the
-    [B, O, W] window stack before that."""
+    always fits), with the offset axis minor and nothing materialized
+    beyond [B, O] planes -- a [B, W, O] slice stack would write and read a
+    [B, 50, O] intermediate (~100 MB at 16k x 152)."""
     W = COMPLETE_COMPARE_REQUIRE
     d50u = jnp.zeros(ol.shape, jnp.uint8)
     for i in range(W):
@@ -84,7 +81,8 @@ def _phase_scan50(head: jnp.ndarray, moving: jnp.ndarray, O: int,
 
 
 def _grouped_correlation(oh1: jnp.ndarray, oh2: jnp.ndarray) -> jnp.ndarray:
-    """Per-pair cross-correlation of one-hot sequences on the MXU.
+    """Per-pair cross-correlation of one-hot sequences as a grouped
+    convolution.
 
     oh1, oh2: [B, C, L] (0/1).  Returns corr [B, 2L-1] where
     corr[b, L-1+lag] = sum_i oh1[b, :, i+lag] . oh2[b, :, i].
@@ -120,11 +118,8 @@ def analyze_mxu(seq1: jnp.ndarray, rlen1: jnp.ndarray,
     """All-offsets overlap analysis via grouped one-hot cross-correlations.
 
     Bit-identical to :func:`analyze` (validated in tests/test_overlap_mxu.py)
-    but NOT the default: XLA lowers grouped convolutions with thousands of
-    feature groups very poorly on TPU (measured ~10x slower end to end than
-    the direct masked-compare formulation), so this stays as a reference
-    formulation for backends where batched correlation maps well onto the
-    matrix unit.
+    and kept as an independent formulation for that cross-check; the
+    pipeline calls :func:`analyze`.
     """
     B, L1 = seq1.shape
     L2 = seq2.shape[1]

@@ -6,8 +6,8 @@ mismatch budget ``min(maxMismatch, max(1, (i+1)/each))`` and trigger when the
 scanned length (break position + 1) reaches ``compareReq``.
 
 The 3'-end scan runs over the STATIC lane flip ``seq[:, ::-1]`` with the
-scanned index recovered per row as ``i = q - (L - rlen)`` -- a per-row
-reversal gather costs ~1.5 us/row on v5e, the flip is free.
+scanned index recovered per row as ``i = q - (L - rlen)``: the static
+flip needs no per-row reversal gather.
 """
 
 from __future__ import annotations
@@ -85,12 +85,10 @@ def trim_polyx(seq: jnp.ndarray, rlen: jnp.ndarray, trim_chr: str,
     when the width allows (L <= 255: four 8-bit A/T/C/G fields, with the
     N tally DERIVED as scanned-count minus the four -- the five classes
     partition the scanned columns), falling back to two 10-bit-field
-    planes for L <= 1023 and five planes beyond.  The per-base cumsums
-    were the measured device-time outlier (round-3 device-only: 4.9M
-    reads/s vs 12.3M for qualcut; round 5: 1.59 -> 0.85 ms per 64k chunk
-    from the single-plane layout + replacing the 6-entry LUT gather with
-    a select chain).  Counter fields cannot overflow at their width
-    bound; bit-identical on every path (fuzz-validated incl. N's)."""
+    planes for L <= 1023 and five planes beyond: one cumsum plane instead
+    of five, and a select chain instead of a 6-entry LUT gather.  Counter
+    fields cannot overflow at their width bound; bit-identical on every
+    path (fuzz-validated incl. N's)."""
     B, L = seq.shape
     rev, iq, mask = _scan_frame(seq, rlen)
     in_trim = [c in trim_chr for c in "ATCGN"]
@@ -141,10 +139,8 @@ def trim_polyx(seq: jnp.ndarray, rlen: jnp.ndarray, trim_chr: str,
     triggered = (pos_star + 1) >= compare_req
 
     # tallies include the breaking position; for a completed scan use the last
-    # valid index (column L-1).  One-hot masked reduction instead of a lane
-    # gather: per-row dynamic gathers along the lane dimension are the slow
-    # path on the TPU VPU (measured ~3 ms per [B, L] take_along_axis at
-    # B=65536 inside the fused pipeline vs ~0.1 ms for the reduction)
+    # valid index (column L-1).  One-hot masked reduction instead of a
+    # per-row dynamic gather along the row
     tally_q = jnp.clip(jnp.minimum(q_star, jnp.int32(L - 1)), 0, L - 1)
     onehot_q = positions(L) == tally_q[:, None]  # [B, L]
     tallies = jnp.stack(

@@ -39,18 +39,15 @@ def stat_batch(seq: jnp.ndarray, qual: jnp.ndarray, rlen: jnp.ndarray,
     only cover passing reads, seprocessor.cpp:342-345).
     """
     B, L = seq.shape
-    # cycle-blocked MXU formulation: per cycle l the 8x4 histogram block is
-    # onehot[l](8 x B) @ weights[l](B x 4).  Batching that dot over L gives
-    # M=8, N=4 matmuls -- 0.2% MXU tile utilization.  Instead, cycles are
-    # grouped G=16 at a time into M=8G=128 / N=4G=64 matmuls (full tiles);
-    # the (g != g') cross-cycle blocks are computed and discarded -- a 16x
-    # MAC overcount that still wins 60x on v5e (0.76 -> 0.012 ms per
-    # 16k x 152 call) because the MXU is otherwise idle.  The g == g'
-    # diagonal is extracted with an eye-contraction (no gathers).
-    # int8 operands (0/1 one-hots, quality offsets <= 93) with int32
-    # accumulation are exact and halve the operand-construction traffic
-    # vs bf16 (0.66 -> 0.56 ms per 64k call, the remaining cost is the
-    # [B, 8, L] one-hot materialization itself).
+    # cycle-blocked matmul formulation: per cycle l the 8x4 histogram block
+    # is onehot[l](8 x B) @ weights[l](B x 4).  Batching that dot over L
+    # gives M=8, N=4 matmuls, far below a matrix unit's tile.  Instead,
+    # cycles are grouped G=16 at a time into M=8G=128 / N=4G=64 matmuls;
+    # the (g != g') cross-cycle blocks are computed and discarded (a 16x
+    # MAC overcount).  The g == g' diagonal is extracted with an
+    # eye-contraction (no gathers).  int8 operands (0/1 one-hots, quality
+    # offsets <= 93) with int32 accumulation are exact and halve the
+    # operand-construction traffic of bf16.
     G = 16
     Lp = -(-L // G) * G
     if Lp != L:
@@ -105,14 +102,13 @@ def kmer_counts(seq: jnp.ndarray, rlen: jnp.ndarray, kmer_len: int,
     (stats.cpp:266-274): a window ending at position i (i >= k-1, i < rlen)
     counts iff all k bases are A/T/C/G.
 
-    MXU formulation: the key splits into hi (first k//2 bases) and lo (the
-    rest), and the histogram is the outer-product accumulation
+    Matmul formulation: the key splits into hi (first k//2 bases) and lo
+    (the rest), and the histogram is the outer-product accumulation
     ``H[a, b] = sum_w onehot_hi[w, a] * onehot_lo[w, b]`` -- one
-    [4^k1, W] x [W, 4^k2] matmul contracting the window axis on the matrix
-    unit (f32 accumulation exact below 2^24 counts per bin).  ~17x faster on
-    v5e than the scatter-add it replaces (1.2 vs 19.5 ms for 16k x 152,
-    measured), which XLA serializes through a [B*nwin] scatter.  Very large
-    k (one-hot planes past ~1.5 GiB) falls back to the scatter."""
+    [4^k1, W] x [W, 4^k2] matmul contracting the window axis (0/1 bf16
+    operands, f32 accumulation exact below 2^24 counts per bin) in place of
+    a [B*nwin] scatter-add.  Very large k (one-hot planes past ~1.5 GiB)
+    falls back to the scatter."""
     B, L = seq.shape
     k = kmer_len
     if k <= 0 or L < k:

@@ -23,7 +23,7 @@ from ..ops import correct as ops_correct
 from ..ops import dup as ops_dup
 from ..ops import filters as ops_filters
 from ..ops import merge as ops_merge
-from ..ops import overlap_select as ops_overlap
+from ..ops import overlap as ops_overlap
 from ..ops import polyx as ops_polyx
 from ..ops import qualcut as ops_qualcut
 from ..ops import stats as ops_stats

@@ -231,8 +231,7 @@ class PairEndRunner:
                         w.write(s)
 
         # cross-pack overlap: pack k+1's chunks execute on the device while
-        # the host fetches and folds pack k (same opt-in as the SE runner --
-        # some remote attachments deadlock with two program batches in flight)
+        # the host fetches and folds pack k (opt-in, as in the SE runner)
         overlap = os.environ.get("FQTOOL_TPU_PACK_OVERLAP", "0") == "1"
         in_flight = None
         from ..io.headcache import iter_packs_paired_cached

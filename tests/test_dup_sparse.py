@@ -60,10 +60,12 @@ def test_sparse_wide_keys_distinct():
 def test_keylen17_end_to_end(tmp_path):
     """--dup_ana_key_len 17 completes without a 4^17-entry allocation and
     reports a duplication section."""
+    from fqtool_tpu import synth
     from fqtool_tpu.main import main as fq_main
 
+    synth.write_se(str(tmp_path / "r1.fq.gz"), 12500, seed=17)
     rc = fq_main([
-        "-i", "/root/reference/testdata/r1.fq.gz",
+        "-i", str(tmp_path / "r1.fq.gz"),
         "-o", str(tmp_path / "out.fq"),
         "-J", str(tmp_path / "report.json"),
         "-H", str(tmp_path / "report.html"),
